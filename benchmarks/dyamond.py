@@ -6,16 +6,16 @@ Mirrors the reference's GPU benchmark scripts
 ncol = ceil(30*30*6*4^2*64/61) = 90,650 columns and all-sky at
 ncol = ceil(86,400*64/73) = 75,748 columns, 60 layers, full spectral size,
 reporting median solve times and columns/s. Memory is bounded by sequential
-column chunks (models.rrtmgp.solve_chunked).
+column chunks (models.rrtmgp.solve_chunked); the default is one chunk per
+DEFAULT_CHUNK columns. Needs a GPU: without one the script fails.
 
-Usage: python benchmarks/dyamond.py [clear|allsky] [--ncol N] [--chunk N]
+Usage: python benchmarks/dyamond.py [clear|allsky|aerosky] [--ncol N] [--chunk N]
 """
 
 from __future__ import annotations
 
 import argparse
 import statistics
-from functools import partial
 import sys
 import time
 
@@ -25,13 +25,16 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 CLEAR_NCOL = 90650   # ref clear_sky_dyamond_gpu_benchmark.jl:102
 ALLSKY_NCOL = 75748  # ref all_sky_with_aerosols_dyamond_gpu_benchmark.jl:114
+#: default column chunk: the bench size, whose unchunked f32 clear pair
+#: needs 2.03e10 B of temporaries (memory_analysis on an NVIDIA H100 80GB
+#: HBM3 at a 400 W power limit, of a 6.4e10 B device limit)
+DEFAULT_CHUNK = 32768
 
 
 def pick_chunk(ncol: int, target: int) -> int:
-    """Largest chunk <= ~target (multiple of 256 for the padded-gpt handoff)
-    minimizing column padding: ceil(ncol / n_chunks) rounded up to 256."""
+    """Chunk <= target that minimizes column padding: ceil(ncol / n_chunks)."""
     n_chunks = -(-ncol // target)
-    return -(-(-(-ncol // n_chunks)) // 256) * 256
+    return -(-ncol // n_chunks)
 
 
 def run(mode: str, ncol: int, chunk: int, nlay: int = 60, n_iters: int = 10,
@@ -40,7 +43,9 @@ def run(mode: str, ncol: int, chunk: int, nlay: int = 60, n_iters: int = 10,
     import jax.numpy as jnp
 
     from rrtmgp_tpu.utils.compile import enable_compile_cache
+    from rrtmgp_tpu.utils.device import gpu_name_and_power_limit, require_gpu
 
+    print(require_gpu(), gpu_name_and_power_limit(), flush=True)
     enable_compile_cache()
 
     from rrtmgp_tpu.data.synthetic import (
@@ -50,7 +55,6 @@ def run(mode: str, ncol: int, chunk: int, nlay: int = 60, n_iters: int = 10,
         synthetic_gas_lookup,
     )
     from rrtmgp_tpu.models.rrtmgp import solve_chunked, solve_lw, solve_sw
-    from rrtmgp_tpu.ops.cloud_optics import build_cloud_mask_mcica
     from rrtmgp_tpu.states import LwBCs, SwBCs
 
     dtype = np.float32
@@ -71,44 +75,6 @@ def run(mode: str, ncol: int, chunk: int, nlay: int = 60, n_iters: int = 10,
         sfc_alb_diffuse=jnp.full((14, ncol_pad), 0.2, jnp.float32),
     )
 
-    from rrtmgp_tpu.utils.compile import sweep_block_cols, tpu_compiler_options
-
-    tabs_lw = tabs_sw = None
-    win_lw = win_sw = 96
-    if jax.default_backend() == "tpu":
-        from rrtmgp_tpu.ops.gas_optics_pallas import (
-            build_pallas_tables,
-            compute_min_window,
-            compute_planck_window,
-            compute_ray_window,
-        )
-
-        tabs_lw = build_pallas_tables(lkp_lw)
-        tabs_sw = build_pallas_tables(lkp_sw)
-        win_lw = compute_min_window(lkp_lw, atm, mega=True)
-        win_sw = compute_min_window(lkp_sw, atm, mega=True)
-        # window buckets computed on a CHUNK-shaped slice (+8 margin): the
-        # chunked solve's per-block flattening differs from the full array's
-        import jax.tree_util as jtu
-
-        atm_c = jtu.tree_map(
-            lambda x: x[..., :chunk] if hasattr(x, "ndim") and x.ndim and x.shape[-1] == ncol_pad else x,
-            atm,
-        )
-        plk_win = compute_planck_window(lkp_lw, atm_c) + 8
-        ray_win = compute_ray_window(lkp_sw, atm_c) + 8
-    copts = tpu_compiler_options()
-    scols = sweep_block_cols()
-    # "force": the window invariant is established once from the full
-    # atmosphere (chunks are subsets), enabling the clear-sky megakernels
-    pk_lw = dict(pallas_tables=tabs_lw, pallas_window=win_lw,
-                 pallas_sweep_cols=scols, pallas_windowed="force")
-    pk_sw = dict(pallas_tables=tabs_sw, pallas_window=win_sw,
-                 pallas_sweep_cols=scols, pallas_windowed="force")
-    if jax.default_backend() == "tpu":
-        pk_lw["pallas_planck_window"] = plk_win
-        pk_sw["pallas_ray_window"] = ray_win
-
     lkp_cld_lw = lkp_cld_sw = lkp_aero_lw = lkp_aero_sw = None
     if mode != "clear":
         lkp_cld_lw = synthetic_cloud_lookup(n_bnd=16, dtype=dtype)
@@ -127,17 +93,17 @@ def run(mode: str, ncol: int, chunk: int, nlay: int = 60, n_iters: int = 10,
 
     if mode == "clear":
 
-        @partial(jax.jit, compiler_options=copts)
+        @jax.jit
         def f_lw(a, b):
             return solve_chunked(
-                lambda ac, bc: solve_lw(lkp_lw, ac, bc, **pk_lw)[0],
+                lambda ac, bc: solve_lw(lkp_lw, ac, bc)[0],
                 a, b, chunk,
             )
 
-        @partial(jax.jit, compiler_options=copts)
+        @jax.jit
         def f_sw(a, b):
             return solve_chunked(
-                lambda ac, bc: solve_sw(lkp_sw, ac, bc, **pk_sw)[0],
+                lambda ac, bc: solve_sw(lkp_sw, ac, bc)[0],
                 a, b, chunk,
             )
 
@@ -147,9 +113,8 @@ def run(mode: str, ncol: int, chunk: int, nlay: int = 60, n_iters: int = 10,
         # McICA mask sampling runs INSIDE the timed solve — the reference
         # samples per column inside its timed solves
         # (ref src/rte/longwave1scalar.jl:72, cloud_optics.jl:222-261).
-        # On TPU the megakernels sample in-kernel from the counter-based seed.
 
-        @partial(jax.jit, compiler_options=copts)
+        @jax.jit
         def f_lw(a, b, seed):
             return solve_chunked(
                 lambda ac, bc, sc, off: solve_lw(
@@ -157,18 +122,16 @@ def run(mode: str, ncol: int, chunk: int, nlay: int = 60, n_iters: int = 10,
                     lkp_cld=lkp_cld_lw,
                     lkp_aero=lkp_aero_lw, cld_mask_seed=sc, col_offset=off,
                     aero_species=aero_species,
-                    **pk_lw,
                 )[0],
                 a, b, chunk, cld_mask_seed=seed,
             )
 
-        @partial(jax.jit, compiler_options=copts)
+        @jax.jit
         def f_sw(a, b, seed):
             return solve_chunked(
                 lambda ac, bc, sc, off: solve_sw(
                     lkp_sw, ac, bc, lkp_cld=lkp_cld_sw, lkp_aero=lkp_aero_sw,
                     cld_mask_seed=sc, col_offset=off, aero_species=aero_species,
-                    **pk_sw,
                 )[0],
                 a, b, chunk, cld_mask_seed=seed,
             )
@@ -186,10 +149,9 @@ def run(mode: str, ncol: int, chunk: int, nlay: int = 60, n_iters: int = 10,
             r = jax.block_until_ready(f(*args))
             times.append(time.perf_counter() - t0)
         med = statistics.median(times)
-        # window-guard violations NaN-poison fluxes — a benchmark of NaNs is
-        # not a benchmark; make that loud
+        # a benchmark of NaNs is not a benchmark; make that loud
         peek = float(np.asarray(r.flux_up[0, 0]))
-        assert np.isfinite(peek), f"{name}: NaN fluxes (window guard tripped?)"
+        assert np.isfinite(peek), f"{name}: non-finite fluxes"
         print(
             f"{name} solve: median {med*1e3:.1f} ms -> {ncol/med:,.0f} columns/s",
             flush=True,
@@ -207,11 +169,14 @@ if __name__ == "__main__":
     ap.add_argument(
         "--lw-noscat", action="store_true",
         help="all-sky LW with the no-scat solver (ref cloudy tests run both "
-        "LW solvers; exercises in-kernel composition in lw_clear_mega)",
+        "LW solvers)",
     )
     a = ap.parse_args()
     ncol = a.ncol or (CLEAR_NCOL if a.mode == "clear" else ALLSKY_NCOL)
-    # megakernels keep per-chunk HBM footprints small; larger chunks amortize
-    # the lax.map step overheads (+4-5% at 2x)
-    chunk = a.chunk or pick_chunk(ncol, 16384)
-    run(a.mode, ncol, chunk, n_iters=a.iters, lw_two_stream=not a.lw_noscat)
+    chunk = a.chunk or pick_chunk(ncol, DEFAULT_CHUNK)
+    from rrtmgp_tpu.utils.device import NoGPUError
+
+    try:
+        run(a.mode, ncol, chunk, n_iters=a.iters, lw_two_stream=not a.lw_noscat)
+    except NoGPUError as e:
+        sys.exit(f"dyamond.py: {e}")

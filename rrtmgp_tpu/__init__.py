@@ -1,11 +1,10 @@
-"""rrtmgp_tpu — TPU-native RTE+RRTMGP radiative transfer framework.
+"""rrtmgp_tpu — RTE+RRTMGP radiative transfer in JAX.
 
-A from-scratch JAX/XLA/Pallas implementation with the capabilities of
+A from-scratch JAX/XLA implementation with the capabilities of
 CliMA/RRTMGP.jl (reference mounted at /root/reference): RRTMGP k-distribution
-gas optics, cloud/aerosol optics, and RTE longwave/shortwave solvers, designed
-TPU-first — pure functions over pytree states, batched (g-point x column)
-compute, ``lax.scan`` vertical recurrences, Pallas kernels on the hot path,
-and column sharding over device meshes.
+gas optics, cloud/aerosol optics, and RTE longwave/shortwave solvers — pure
+functions over pytree states, batched (g-point x column) compute,
+``lax.scan`` vertical recurrences, and column sharding over device meshes.
 """
 
 from .parameters import RRTMGPParameters, pow_fast
@@ -37,8 +36,6 @@ from .states import (
 from .models.rrtmgp import (
     FluxLW,
     FluxSW,
-    differentiable_solve_lw,
-    differentiable_solve_sw,
     solve_chunked,
     solve_lw,
     solve_sw,

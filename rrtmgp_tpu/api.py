@@ -26,7 +26,6 @@ import jax.numpy as jnp
 from .data.lookups import AerosolLookup, CloudLookup, GasLookup
 from .models import rrtmgp as _solvers
 from .models.gray import GrayAtmosphericState, solve_gray_lw, solve_gray_sw
-from .ops.cloud_optics import build_cloud_mask_mcica
 from .parameters import RRTMGPParameters
 from .states import AtmosphericState, LwBCs, SwBCs
 
@@ -190,6 +189,61 @@ def gas_names_sw() -> list[str]:
 
 
 # ---------------------------------------------------------------------------
+# f64 memory sizing
+# ---------------------------------------------------------------------------
+
+#: Device temporaries of the unchunked f64 pair per spectral element
+#: (layer x column x g-point, g-points = the wider of LW and SW):
+#: ``compiled.memory_analysis().temp_size_in_bytes / (ncol * nlay * ngpt)``
+#: of the all-sky + aerosol pair, the largest f64 program (5.93e9 B at 4,096
+#: columns x 60 layers x 256 g-points; the clear pair needs 4.74e9 B), from
+#: XLA's GPU backend on an NVIDIA H100 80GB HBM3 at a 400 W power limit.
+F64_BYTES_PER_ELEMENT = 94.3
+
+#: Share of the device's ``bytes_limit`` an f64 solve may fill with
+#: temporaries; the rest holds the state, the outputs and other programs.
+CHUNK_BUDGET_FRACTION = 0.5
+
+
+def f64_bytes_per_column(nlay: int, ngpt: int) -> float:
+    """Device temporaries of the f64 pair per column (see F64_BYTES_PER_ELEMENT)."""
+    return nlay * ngpt * F64_BYTES_PER_ELEMENT
+
+
+def chunk_budget_bytes(device=None) -> float | None:
+    """Bytes of temporaries one f64 solve may use.
+
+    ``$RRTMGP_CHUNK_BUDGET_GB`` overrides; otherwise CHUNK_BUDGET_FRACTION of
+    the device's ``memory_stats()["bytes_limit"]``. None when the device
+    reports no limit (the CPU): the solve is then not chunked."""
+    import os
+
+    env = os.environ.get("RRTMGP_CHUNK_BUDGET_GB")
+    if env:
+        return float(env) * 1e9
+    device = jax.devices()[0] if device is None else device
+    limit = (device.memory_stats() or {}).get("bytes_limit")
+    return CHUNK_BUDGET_FRACTION * limit if limit else None
+
+
+def auto_chunk_size(ncol: int, per_col: float, budget: float | None) -> int | None:
+    """Column chunk that keeps ``chunk * per_col`` within ``budget``, or None
+    when the whole batch fits (or there is no budget).
+
+    The chunk is a FREE choice: the chunked solve edge-pads columns up to a
+    chunk multiple and slices back, so it need not divide ncol (a prime ncol
+    would otherwise collapse to one column per step). The largest power of
+    two <= the budget's column count divides typical column counts exactly
+    and bounds pad waste."""
+    if budget is None:
+        return None
+    cmax = max(int(budget // per_col), 1)
+    if ncol <= cmax:
+        return None
+    return 1 << (cmax.bit_length() - 1)
+
+
+# ---------------------------------------------------------------------------
 # Solver
 # ---------------------------------------------------------------------------
 
@@ -217,13 +271,10 @@ class RRTMGPSolver:
         two_stream_sw: bool = True,
         n_gauss_angles: int = 1,
         data_dir: str | None = None,
-        pallas_windowed: str = "force",
         aero_species: tuple | None = None,
         mesh=None,
-        use_pallas: bool | None = None,
         metric_scaling=None,
         eta_node_mode: str = "continuous",
-        f64_kernel: bool | None = None,
     ):
         self.grid_params = grid_params
         self.radiation_method = radiation_method
@@ -252,40 +303,23 @@ class RRTMGPSolver:
         # carries AngularDiscretization in its solver container
         # (/root/reference/src/optics/RTE.jl:61-70) but runs angle 1; here
         # n_gauss_angles > 1 sums the no-scat sweep over the quadrature.
-        # Ignored by two-stream LW and by SW (as in the reference).
-        # PERF NOTE (measured, PARITY.md): >1 leaves the single-kernel
-        # megakernel path (the fused sweep bakes one propagation angle) for
-        # the two-kernel path with the sweep re-run per angle — 2 angles
-        # run at ~42% of the 1-angle rate at 32k cols (3 angles ~39%);
-        # budget ~2.5x for Hogan-2023's 2-3-angle guidance.
+        # Ignored by two-stream LW and by SW (as in the reference). Each
+        # extra angle re-runs the no-scat sweep over the same optics.
         self.n_gauss_angles = n_gauss_angles
-        # Multi-chip: a 1-D jax.sharding.Mesh over the column axis
+        # Multi-device: a 1-D jax.sharding.Mesh over the column axis
         # (parallel.sharding.make_column_mesh). The solves are shard_mapped —
-        # each device runs the SAME kernels (incl. the Pallas megakernels) on
-        # its local columns, tables replicated, zero collectives; McICA
-        # streams are keyed on GLOBAL column/block indices so results are
-        # bitwise mesh-layout-invariant. ncol must divide by the mesh size
-        # (and, for the megakernel path, by 128 per shard).
+        # each device runs the same program on its local columns, tables
+        # replicated, zero collectives; McICA streams are keyed on GLOBAL
+        # column indices so results are bitwise mesh-layout-invariant. ncol
+        # must divide by the mesh size.
         self.mesh = mesh
-        # None: Pallas kernel path iff running on TPU. True forces the Pallas
-        # path off-TPU (interpret mode — slow; for tests/dryruns only).
-        self.use_pallas = use_pallas
         # optional (nlev, ncol) deep-atmosphere metric scaling applied to all
         # fluxes (ref Fluxes.jl:227-236; solver-arg in RTESolver.jl)
         self.metric_scaling = metric_scaling
-        # "force" (default) trusts the init-computed table window (+1 bucket
-        # of margin, see _build_solvers) and enables the single-kernel solves
-        # (ops/pallas_mega.py); "auto" adds a runtime invariant check with a
-        # full-width fallback for hosts that mutate p/t far beyond init.
-        self.pallas_windowed = pallas_windowed
         # optional STATIC declaration of the MERRA aerosol species the host
         # loads (indices into api_methods-style aerosol_names order); species
         # outside the set are skipped at trace time. None = all 15.
         self.aero_species = aero_species
-        # None/True: f64 CLEAR-SKY LW no-scat solves on TPU route through the
-        # split-precision df64 megakernel (ops/pallas_mega_df; 4-7x the exact
-        # XLA f64 path at <= 2e-6 W/m^2 from it). False: exact XLA f64 only.
-        self.f64_kernel = f64_kernel
         # eta grid-node semantics (ops.gas_optics.ETA_NODE_MODES): default
         # "continuous" (node-continuous interpolation); "reference" reproduces
         # the reference's full-cell jump at exact eta nodes — REQUIRED for
@@ -309,9 +343,6 @@ class RRTMGPSolver:
         #: every solver (incl. gray, whose _build_solvers returns early)
         #: exposes the attribute.
         self.auto_chunk: int | None = None
-        #: (Df64Tables, window) when the split-precision f64 LW kernel tier
-        #: is active (ops/pallas_mega_df); None otherwise
-        self._df64 = None
         self._step = 0
         self._build_solvers()
 
@@ -333,142 +364,39 @@ class RRTMGPSolver:
             self._sw_fn = jax.jit(partial(solve_gray_sw, two_stream=self.two_stream_sw))
             return
 
-        # Pallas kernel tables on TPU (fused MXU interpolation path), plus the
-        # static perf knobs derived eagerly at init: the minimal table window
-        # for this atmosphere's p/t spread (+16 rows of margin — roughly 4
-        # temperature-grid steps of host drift — so the default "force" mode
-        # stays valid through time stepping) and the large sweep blocks
-        # enabled by the raised scoped-VMEM jit option.
-        from .utils.compile import sweep_block_cols, tpu_compiler_options
-
-        tabs_lw = tabs_sw = None
-        win_lw = win_sw = 96
-        on_tpu = jax.default_backend() == "tpu"
-        # the Pallas kernel tier is f32-only; an f64 solver goes straight to
-        # the exact-precision XLA path (with f64 auto-chunking below) instead
-        # of building kernel tables it would warn about and ignore
-        use_pallas = self.use_pallas if self.use_pallas is not None else (
-            on_tpu and jnp.dtype(self.grid_params.dtype) == jnp.float32
-        )
-        if use_pallas:
-            from .ops.gas_optics_pallas import build_pallas_tables, compute_min_window
-
-            tabs_lw = build_pallas_tables(lk.lookup_lw)
-            tabs_sw = build_pallas_tables(lk.lookup_sw)
-            # force mode uses the megakernels, whose window lives in the
-            # sec-minor interleaved row space (3x granularity)
-            mega = self.pallas_windowed == "force"
-            margin = 16 if mega else 0
-            win_lw = compute_min_window(lk.lookup_lw, self.as_, mega=mega) + margin
-            win_sw = compute_min_window(lk.lookup_sw, self.as_, mega=mega) + margin
-        self._pallas_lw = tabs_lw
-        self._pallas_sw = tabs_sw
-        self._win_lw = win_lw
-        self._win_sw = win_sw
-        ray_win = plk_win = None
-        if use_pallas:
-            from .ops.gas_optics_pallas import (
-                compute_planck_window,
-                compute_ray_window,
-            )
-
-            # +8 margin mirrors the q-window margin (one extra 8-row tile of
-            # p/t drift headroom before the in-jit guard trips)
-            ray_win = compute_ray_window(lk.lookup_sw, self.as_) + 8
-            plk_win = compute_planck_window(lk.lookup_lw, self.as_) + 8
-        self._ray_win_sw = ray_win
-        self._plk_win_lw = plk_win
-        copts = tpu_compiler_options()
-        scols = sweep_block_cols()
-
         lw_aero = lk.lookup_lw_aero if aero else None
         sw_aero = lk.lookup_sw_aero if aero else None
         aspec = self.aero_species
         mscale = self.metric_scaling
-
-        wmode = self.pallas_windowed
-
-        # the megakernels need 128-aligned ncol; edge-replicate-pad ragged
-        # column counts inside the jitted solve (pad keeps the window
-        # invariant; outputs are sliced back), so API users get the
-        # single-kernel path at any ncol. Not applied in mesh mode (sharded
-        # ncol must already satisfy per-shard alignment).
         ncol0 = int(self.as_.ncol)
         mesh = self.mesh
 
-        # f64 auto-chunking: the f64 path has no Pallas tier, so it
-        # materializes the (nlay, ncol, ngpt) spectral tensors — ~34
-        # tensor-equivalents per solve (measured, PARITY.md), i.e. ~4 MB per
-        # column at 60 lay x 256 gpt. Above a memory budget (default 8 GB,
-        # override $RRTMGP_CHUNK_BUDGET_GB) the solves route through
-        # solve_chunked automatically so DYAMOND-scale f64 runs work
+        # f64 auto-chunking: the XLA path materializes (nlay, ncol, ngpt)
+        # spectral tensors, so a solve above the memory budget routes through
+        # solve_chunked automatically and DYAMOND-scale f64 runs work
         # unmodified (the reference runs f64 first-class,
         # /root/reference/test/runtests.jl:27-30). McICA stays bitwise
         # chunk-invariant (global-column keying, solve_chunked contract).
         dt = jnp.dtype(self.grid_params.dtype)
         if mesh is None and dt == jnp.float64:
-            import os as _os
             import warnings as _warnings
 
             ngpt_max = max(lk.lookup_lw.n_gpt, lk.lookup_sw.n_gpt)
-            per_col = self.as_.nlay * ngpt_max * dt.itemsize * 34
-            budget = float(_os.environ.get("RRTMGP_CHUNK_BUDGET_GB", "8")) * 1e9
-            cmax = max(int(budget // per_col), 1)
-            if ncol0 > cmax:
-                # chunk is a FREE choice: the chunked solve edge-pads columns
-                # up to a chunk multiple and slices back, so don't restrict to
-                # divisors of ncol0 (a prime ncol would collapse the divisor
-                # to 1 = one lax.map step per column). The largest power of
-                # two <= cmax divides typical column counts exactly and
-                # bounds pad waste; the Pallas path needs >= 128 for kernel
-                # alignment (and then divides the 128-padded count).
-                pow2 = 1 << (cmax.bit_length() - 1)
-                self.auto_chunk = max(pow2, 128) if use_pallas else pow2
+            per_col = f64_bytes_per_column(self.as_.nlay, ngpt_max)
+            budget = chunk_budget_bytes()
+            self.auto_chunk = auto_chunk_size(ncol0, per_col, budget)
+            if self.auto_chunk is not None:
                 _warnings.warn(
-                    f"f64 solve at ncol={ncol0} would materialize "
-                    f"~{ncol0 * per_col / 1e9:.1f} GB of spectral tensors; "
-                    f"auto-chunking into {self.auto_chunk}-column chunks "
-                    f"(budget {budget / 1e9:.0f} GB, "
-                    f"$RRTMGP_CHUNK_BUDGET_GB to adjust)",
+                    f"f64 solve at ncol={ncol0} needs ~{ncol0 * per_col / 1e9:.1f}"
+                    f" GB of device temporaries; auto-chunking into "
+                    f"{self.auto_chunk}-column chunks (budget "
+                    f"{budget / 1e9:.1f} GB, $RRTMGP_CHUNK_BUDGET_GB to adjust)",
                     stacklevel=3,
                 )
         chunk = self.auto_chunk
-        # split-precision f64 LW tier (ops/pallas_mega_df): clear-sky LW
-        # no-scat f64 solves on TPU route through the df64 megakernel —
-        # measured 4-7x the exact XLA f64 path at <= 2e-6 W/m^2 from it
-        # (PARITY.md). f64_kernel=False opts out (bitwise XLA-f64 fluxes).
-        if (
-            mesh is None and dt == jnp.float64 and on_tpu
-            and isinstance(m, ClearSkyRadiation)
-            and not self.two_stream_lw
-            and (self.bcs_lw is None or self.bcs_lw.inc_flux is None)
-            and self.f64_kernel is not False
-        ):
-            from .ops.pallas_mega_df import (
-                build_df64_tables,
-                compute_df64_window,
-            )
-
-            self._df64 = (
-                build_df64_tables(lk.lookup_lw),
-                compute_df64_window(lk.lookup_lw, self.as_),
-            )
         #: global column ids, sharded alongside the state in mesh mode; the
         #: cloudy solves read col_ids[0] = the shard's global column offset
         self._col_ids = jnp.arange(ncol0, dtype=jnp.int32)
-
-        def _col_aligned(fn):
-            if mesh is not None or not use_pallas or ncol0 % 128 == 0:
-                return fn
-
-            def wrapped(*args):
-                # pad_columns is shape-driven: only leaves with a trailing
-                # ncol axis are padded (seeds/col_ids pass through; col_ids
-                # padding is inert — only col_ids[0] is read)
-                out = fn(*(_solvers.pad_columns(a, ncol0) for a in args))
-                return _solvers.slice_columns(out, ncol0)
-
-            return wrapped
 
         def _spmd(fn):
             """jit; in mesh mode, shard_map over the column mesh first."""
@@ -476,7 +404,7 @@ class RRTMGPSolver:
                 from .parallel.sharding import shard_solve
 
                 fn = shard_solve(fn, mesh, ncol0)
-            return jax.jit(_col_aligned(fn), compiler_options=copts)
+            return jax.jit(fn)
 
         nga = self.n_gauss_angles
         enm = self.eta_node_mode
@@ -485,30 +413,24 @@ class RRTMGPSolver:
             return _solvers.solve_lw(
                 lk.lookup_lw, atm, bcs, two_stream=self.two_stream_lw, lkp_aero=lw_aero,
                 n_gauss_angles=nga,
-                pallas_tables=tabs_lw, pallas_window=win_lw, pallas_sweep_cols=scols,
-                pallas_planck_window=plk_win,
-                pallas_windowed=wmode, aero_species=aspec, metric_scaling=mscale,
+                aero_species=aspec, metric_scaling=mscale,
                 eta_node_mode=enm,
             )
 
         def sw_clear_one(atm, bcs):
             return _solvers.solve_sw(
                 lk.lookup_sw, atm, bcs, two_stream=self.two_stream_sw, lkp_aero=sw_aero,
-                pallas_tables=tabs_sw, pallas_window=win_sw, pallas_sweep_cols=scols,
-                pallas_ray_window=ray_win,
-                pallas_windowed=wmode, aero_species=aspec, metric_scaling=mscale,
+                aero_species=aspec, metric_scaling=mscale,
                 eta_node_mode=enm,
             )
 
         def _chunked(one_fn, atm, bcs, **kw):
             # auto_chunk need not divide the column count (it is budget-
             # derived, not a divisor of ncol): edge-pad columns to a chunk
-            # multiple and slice back. Edge padding preserves the window
-            # invariant; in seed mode the pad columns' McICA offsets run past
-            # ncol, which is inert — their fluxes are sliced away.
+            # multiple and slice back. In seed mode the pad columns' McICA
+            # offsets run past ncol, which is inert — their fluxes are sliced
+            # away. pad/slice_columns are no-ops when chunk divides ncol.
             nc = atm.ncol
-            if nc % chunk == 0:
-                return _solvers.solve_chunked(one_fn, atm, bcs, chunk, **kw)
             atm_p = _solvers.pad_columns(atm, nc, multiple=chunk)
             bcs_p = _solvers.pad_columns(bcs, nc, multiple=chunk)
             out = _solvers.solve_chunked(one_fn, atm_p, bcs_p, chunk, **kw)
@@ -527,10 +449,9 @@ class RRTMGPSolver:
         self._lw_clear = _spmd(lw_clear)
         self._sw_clear = _spmd(sw_clear)
 
-        # fused LW+SW pair: ONE jitted program per radiation step — the
-        # separate update_lw/update_sw jits pay a measured ~6.4 ms host
-        # dispatch gap between them at 8k columns (profile_allsky r3), the
-        # dominant small-batch overhead; update_fluxes() uses these
+        # fused LW+SW pair: ONE jitted program per radiation step, so the
+        # separate update_lw/update_sw jits' host dispatch gap between them
+        # is not paid; update_fluxes() uses these
         def pair_clear(atm, bl, bs):
             return lw_clear(atm, bl), sw_clear(atm, bs)
 
@@ -544,9 +465,6 @@ class RRTMGPSolver:
                     n_gauss_angles=nga,
                     lkp_cld=lk.lookup_lw_cld, lkp_aero=lw_aero,
                     cld_mask_seed=seed, col_offset=col_off,
-                    pallas_tables=tabs_lw, pallas_window=win_lw,
-                    pallas_sweep_cols=scols, pallas_planck_window=plk_win,
-                    pallas_windowed=wmode,
                     aero_species=aspec, metric_scaling=mscale,
                     eta_node_mode=enm,
                 )
@@ -556,9 +474,6 @@ class RRTMGPSolver:
                     lk.lookup_sw, atm, bcs, two_stream=self.two_stream_sw,
                     lkp_cld=lk.lookup_sw_cld, lkp_aero=sw_aero,
                     cld_mask_seed=seed, col_offset=col_off,
-                    pallas_tables=tabs_sw, pallas_window=win_sw,
-                    pallas_sweep_cols=scols, pallas_ray_window=ray_win,
-                    pallas_windowed=wmode,
                     aero_species=aspec, metric_scaling=mscale,
                     eta_node_mode=enm,
                 )
@@ -603,28 +518,6 @@ class RRTMGPSolver:
         """Advance (or set) the timestep used for McICA keys."""
         self._step = self._step + 1 if step is None else step
 
-    def check_window(self, as_=None) -> bool:
-        """Validate the init-computed force-mode kernel window against the
-        current (possibly host-drifted) atmosphere. The default "force" mode
-        trusts the init window (+16 rows of margin, ~4 temperature-grid
-        steps); hosts stepping temperatures/pressures far from their initial
-        state should call this periodically — a violated window in force mode
-        reads wrong table rows. Cheap (one eager min/max over p/t). Always
-        True off-TPU or for gray radiation."""
-        if isinstance(self.radiation_method, GrayRadiation):
-            return True
-        if self._pallas_lw is None:  # Pallas kernel path not in use
-            return True
-        from .ops.gas_optics_pallas import compute_min_window
-
-        atm = self.as_ if as_ is None else as_
-        mega = self.pallas_windowed == "force"
-        lk = self.lookups
-        return (
-            compute_min_window(lk.lookup_lw, atm, mega=mega) <= self._win_lw
-            and compute_min_window(lk.lookup_sw, atm, mega=mega) <= self._win_sw
-        )
-
     # -- flux updates (ref api.jl:115-176) ----------------------------------
 
     def update_fluxes(self):
@@ -632,21 +525,14 @@ class RRTMGPSolver:
 
         Functionally identical to update_lw_fluxes() + update_sw_fluxes()
         (same solves, same McICA keys), but the pair runs as a single jit —
-        removing the measured ~6.4 ms host dispatch gap between the two
-        separate jits (profile_allsky r3), which dominates per-step overhead
-        at small per-chip batches. Returns (flux_lw, flux_sw). The reference
-        has no combined method (hosts call update_lw_fluxes!/update_sw_fluxes!
-        separately, ref api.jl:115-176) — this is the TPU-native completion
-        for dispatch-bound per-chip batch sizes.
+        removing the host dispatch gap between the two separate jits, which
+        matters at small per-device batches. Returns (flux_lw, flux_sw). The
+        reference has no combined method (hosts call
+        update_lw_fluxes!/update_sw_fluxes! separately, ref api.jl:115-176).
         """
         m = self.radiation_method
-        if (
-            isinstance(m, GrayRadiation) or self.bcs_lw is None
-            or self.bcs_sw is None or self._df64 is not None
-        ):
-            # gray / partial-BC / df64-tier solvers run the two updates
-            # separately (the df64 LW path is not a single jit — it cannot
-            # join the fused pair program)
+        if isinstance(m, GrayRadiation) or self.bcs_lw is None or self.bcs_sw is None:
+            # gray / partial-BC solvers run the two updates separately
             self.update_lw_fluxes()
             self.update_sw_fluxes()
             return self.flux_lw, self.flux_sw
@@ -673,17 +559,27 @@ class RRTMGPSolver:
             )
         return self.flux_lw, self.flux_sw
 
+    def lower_update_fluxes(self) -> jax.stages.Lowered:
+        """The fused LW+SW program update_fluxes() runs for ClearSkyRadiation
+        or AllSkyRadiation, lowered for the current state: ``.compile()``
+        gives its compile time and ``memory_analysis()``."""
+        m = self.radiation_method
+        if type(m) is ClearSkyRadiation:
+            return self._pair_clear.lower(self.as_, self.bcs_lw, self.bcs_sw)
+        if type(m) is AllSkyRadiation:
+            return self._pair_cloudy.lower(
+                self.as_, self.bcs_lw, self.bcs_sw,
+                self._mcica_key(0), self._mcica_key(1), self._col_ids,
+            )
+        raise TypeError(f"update_fluxes runs more than one program for {m!r}")
+
     def update_lw_fluxes(self):
         m = self.radiation_method
         if isinstance(m, GrayRadiation):
             up, dn, net = self._lw_fn(self.as_, self.bcs_lw.sfc_emis[0])
             self.flux_lw = _solvers.FluxLW(up, dn, net)
         elif isinstance(m, ClearSkyRadiation):
-            if self._df64 is not None:
-                self.flux_lw = self._solve_lw_df64()
-                self.diag_lw = _solvers.SolveDiagnostics()
-            else:
-                self.flux_lw, self.diag_lw = self._lw_clear(self.as_, self.bcs_lw)
+            self.flux_lw, self.diag_lw = self._lw_clear(self.as_, self.bcs_lw)
         elif isinstance(m, AllSkyRadiation):
             self.flux_lw, self.diag_lw = self._lw_cloudy(
                 self.as_, self.bcs_lw, self._mcica_key(0), self._col_ids
@@ -694,32 +590,6 @@ class RRTMGPSolver:
                 self.as_, self.bcs_lw, self._mcica_key(0), self._col_ids
             )
         return self.flux_lw
-
-    def _solve_lw_df64(self):
-        """Clear-sky LW solve through the split-precision df64 megakernel
-        (ops/pallas_mega_df) — ~4-7x the exact XLA f64 path on chip at
-        <= 2e-6 W/m^2 L-inf from it (PARITY.md). Columns are edge-padded to
-        the 128 block and sliced back; metric scaling applied after."""
-        from .models.rrtmgp import pad_columns, slice_columns
-        from .ops.pallas_mega_df import solve_lw_df64
-
-        tabs, win = self._df64
-        atm, bcs = self.as_, self.bcs_lw
-        ncol = int(atm.ncol)
-        if ncol % 128:
-            atm = pad_columns(atm, ncol)
-            bcs = pad_columns(bcs, ncol)
-        up, dn = solve_lw_df64(
-            self.lookups.lookup_lw, tabs, atm, bcs, window=win,
-            eta_node_mode=self.eta_node_mode,
-            n_gauss_angles=self.n_gauss_angles,
-        )
-        if ncol % 128:
-            up, dn = slice_columns((up, dn), ncol)
-        if self.metric_scaling is not None:
-            up = up * self.metric_scaling
-            dn = dn * self.metric_scaling
-        return _solvers.FluxLW(up, dn, up - dn)
 
     def update_sw_fluxes(self):
         m = self.radiation_method

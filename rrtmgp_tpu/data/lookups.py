@@ -5,11 +5,11 @@ redesigned for XLA:
 
 - Dense coefficient tensors are pytree array leaves, with g-point LEADING
   (``kmajor (ngpt, npress+1, ntemp, neta)``) so per-g-point slabs are
-  contiguous for gathers / Pallas DMA.
+  contiguous for gathers.
 - Everything the reference treats as *index data* (key species per band, band
   g-point limits, minor-gas interval metadata, scaling flags) is STATIC
   python metadata (hashable tuples). Under ``jit`` the band/minor loops
-  unroll at trace time into dense vectorized ops — the TPU-native replacement
+  unroll at trace time into dense vectorized ops — the replacement
   for the reference's ragged per-(band, g-point) loops
   (/root/reference/src/optics/gas_optics.jl:277-303).
 

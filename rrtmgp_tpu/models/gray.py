@@ -7,8 +7,8 @@ family, mirroring the reference's gray path
  /root/reference/src/optics/GrayUtils.jl) as pure JAX functions.
 
 Array layout: vertical axis leading, columns trailing — (nlay, ncol) /
-(nlay+1, ncol) — so vertical scans run over the leading axis and columns sit
-on TPU lanes. Level 0 is the surface.
+(nlay+1, ncol) — so vertical scans run over the leading axis and columns are
+contiguous. Level 0 is the surface.
 """
 
 from __future__ import annotations

@@ -153,12 +153,11 @@ def aerosol_optics_bands(
     15 species; the skip removes ~2/3 of the band-prep HBM traffic.
 
     One-hot-matmul formulation of compute_lookup_aerosol
-    (ref aerosol_optics.jl:121-185): pointwise gathers of the tiny MERRA
-    tables with (nlay, ncol) dynamic indices lower to scalar loops on TPU
-    (~6 ms each; dozens per band made the aerosol path dominate all-sky
-    solves). RH and size-bin lookups become (rows, n) interpolation-weight
-    matrices contracted against (n, 3*nbnd) table views — one matmul per
-    species family fetches every band and property."""
+    (ref aerosol_optics.jl:121-185): instead of dozens of pointwise gathers
+    of the tiny MERRA tables per band, the RH and size-bin lookups become
+    (rows, n) interpolation-weight matrices contracted against (n, 3*nbnd)
+    table views — one matmul per species family fetches every band and
+    property."""
     dtype = rel_hum.dtype
     nlay, ncol = rel_hum.shape
     rows = nlay * ncol

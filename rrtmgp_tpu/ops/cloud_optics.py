@@ -94,12 +94,11 @@ def cloud_optics_band(lkp: CloudLookup, cs: CloudState, ibnd: int):
 def _rad_interp_all_bands(table_all, re, path, rad_lwr, rad_upr, nsize):
     """All-band radius interpolation via ONE one-hot matmul.
 
-    table_all: (3, nsize, nbnd). A pointwise ``table[0, loc]`` gather with
-    (nlay, ncol) dynamic indices lowers to a scalar loop on TPU (~6 ms per
-    gather at 8k columns; ~190 of them made all-sky 30x slower than clear
-    sky). The radius axis is tiny, so a (rows, nsize) one-hot times
-    (nsize, 3*nbnd) contraction fetches every property for every band at
-    once. Returns (tau, tau*ssa, tau*ssa*g), each (nlay, ncol, nbnd).
+    table_all: (3, nsize, nbnd). Instead of one pointwise ``table[0, loc]``
+    gather per band and property, the tiny radius axis becomes a
+    (rows, nsize) one-hot times (nsize, 3*nbnd) contraction that fetches
+    every property for every band at once. Returns (tau, tau*ssa,
+    tau*ssa*g), each (nlay, ncol, nbnd).
     """
     dtype = re.dtype
     eps = _eps(dtype)

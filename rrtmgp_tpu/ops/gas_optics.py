@@ -1,4 +1,4 @@
-"""RRTMGP k-distribution gas optics, TPU-native formulation.
+"""RRTMGP k-distribution gas optics, batched XLA formulation.
 
 Mirrors the numerics of the reference's per-(layer, g-point) scalar kernel
 (/root/reference/src/optics/gas_optics.jl:166-335 and
@@ -8,10 +8,10 @@ Mirrors the numerics of the reference's per-(layer, g-point) scalar kernel
   (layer, column) — they are g-point independent.
 - The 8-point trilinear LUT interpolation (optics_utils.jl:123-149) is
   reorganized as a ROW GATHER: for one (layer, column), all g-points and eta
-  nodes read the same 4 (press, temp) slabs of the table. Gathering whole
-  contiguous (ngpt*neta) rows maps onto efficient TPU DMA (measured ~235x
-  faster than pointwise gathers), and the eta interpolation then contracts
-  the trailing eta axis with per-band one-hot weights.
+  nodes read the same 4 (press, temp) slabs of the table. Whole contiguous
+  (ngpt*neta) rows are gathered instead of pointwise elements, and the eta
+  interpolation then contracts the trailing eta axis with per-band one-hot
+  weights.
 - Eta (binary species parameter) data is computed at BAND granularity —
   a short trace-time loop over the static key-species table.
 - The minor-gas interval loop (dozens of intervals) unrolls at trace time
@@ -20,8 +20,8 @@ Mirrors the numerics of the reference's per-(layer, g-point) scalar kernel
   (gas_optics.jl:277-303).
 
 LAYOUT: optics tensors are (nlay, ncol, ngpt) — vertical axis leading for the
-RTE scans, g-points on TPU lanes (ngpt = 256/224 is lane-friendly), columns
-on sublanes; the g-point flux reduction is a fast lane-axis sum.
+RTE scans, g-points on the minor (contiguous) axis; the g-point flux
+reduction is a minor-axis sum.
 
 Index conventions: level/layer 0 = surface; g-points and bands 0-based;
 gas indices 1-based matching the reference's vmr convention.
@@ -140,9 +140,8 @@ def compute_eta_interp(
 
     # eta_half rows by temperature: (nbnd, 2, ntemp) -> (ntemp, nbnd, 2).
     # The row lookup at jtemp/jtemp+1 runs as a one-hot matmul over the tiny
-    # temperature axis — narrow (nbnd*2-wide) row gathers at every
-    # (layer, column) were ~10 ms at 8k columns on TPU; the dense contraction
-    # is bandwidth-trivial. HIGHEST keeps the 0/1 weights exact in f32.
+    # temperature axis instead of narrow (nbnd*2-wide) row gathers at every
+    # (layer, column). HIGHEST keeps the 0/1 weights exact in f32.
     eh = jnp.transpose(lkp.eta_half, (2, 0, 1))
     ntemp = eh.shape[0]
     eh2 = eh.reshape(ntemp, -1)                           # (ntemp, nbnd*2)
@@ -151,7 +150,7 @@ def compute_eta_interp(
     eh_cat = jnp.concatenate([eh2, jnp.roll(eh2, -1, axis=0)], axis=1)
     iota_t = jnp.arange(ntemp, dtype=jnp.int32)
     if dtype == jnp.float64:
-        # f64 dot_general while-emulates on TPU; exact f32-split extraction
+        # exact f32-split extraction (see _f64_dot_extract)
         w_t32 = (pt.jtemp[..., None] == iota_t).astype(jnp.float32)
         ehg_both = _f64_dot_extract(w_t32, jnp.asarray(eh_cat, jnp.float64))
     else:
@@ -183,92 +182,6 @@ def compute_eta_interp(
     return EtaInterp(j1, f1, j2, f2, c1, c2)
 
 
-def compute_eta_interp_bl(
-    lkp: GasLookup, vmr, pt: PTInterp, nbnd_out: int | None = None,
-    node_mode: str = "continuous",
-) -> EtaInterp:
-    """Band-LEADING eta interp: each field (nbnd, nlay, ncol).
-
-    Same math as compute_eta_interp but with the band axis first, so every
-    elementwise op runs over full 128-lane (ncol) vectors instead of
-    nbnd(=14/16)-lane ones — measured ~6x faster at 8k columns on TPU v5e.
-    Used by the Pallas optics path, whose pack layout is (field, rows).
-
-    nbnd_out > nbnd pads the band axis INSIDE the producing fusion (dummy
-    bands duplicate band nbnd-1's key species with zero eta_half): the
-    megakernels need 8-aligned band rows, and a post-hoc jnp.pad re-copies
-    ~126 MB per operand at DYAMOND widths. Pad-row values are finite garbage;
-    consumers must mask them (the mega expand matrices' pad rows are zero) —
-    never feed band_pad output to per-band-index paths (_tau_minor_merged)
-    or band reductions. node_mode: see ETA_NODE_MODES."""
-    nbnd = lkp.n_bnd
-    if nbnd_out is not None and nbnd_out > nbnd:
-        assert nbnd_out % 8 == 0, nbnd_out  # mega contract: 8-aligned rows
-        mb = nbnd_out
-    else:
-        mb = nbnd
-    n_eta = lkp.n_eta
-    dtype = lkp.eta_half.dtype
-    shape2d = pt.jtemp.shape
-    nlay, ncol = shape2d
-
-    def vmr_stack(slot, t):
-        return jnp.stack(
-            [
-                jnp.broadcast_to(
-                    get_vmr(vmr, lkp.key_species[min(b, nbnd - 1)][t][slot]),
-                    shape2d,
-                )
-                for b in range(mb)
-            ],
-            axis=0,
-        ).astype(dtype)  # (mb, nlay, ncol)
-
-    sel = pt.tropo_lower[None]
-    vmr1 = jnp.where(sel, vmr_stack(0, 0), vmr_stack(0, 1))
-    vmr2 = jnp.where(sel, vmr_stack(1, 0), vmr_stack(1, 1))
-
-    # eta_half rows at (jtemp, jtemp+1) via a one-hot contraction over the
-    # tiny temperature axis, band-leading: (2*mb*2, ntemp) @ (ntemp, rows).
-    # (A joint (jtemp, tropo-slot) one-hot that halves the materialized
-    # gather was measured 3.5% SLOWER end-to-end on v5e — it broke XLA's
-    # layout-assigned free transposes into the mega operand order; keep the
-    # two-slot gather + select form.)
-    eh = jnp.transpose(lkp.eta_half, (2, 0, 1))           # (ntemp, nbnd, 2)
-    if mb != nbnd:
-        eh = jnp.pad(eh, ((0, 0), (0, mb - nbnd), (0, 0)))
-    ntemp = eh.shape[0]
-    eh2 = eh.reshape(ntemp, -1)                           # (ntemp, mb*2)
-    eh_cat = jnp.concatenate([eh2, jnp.roll(eh2, -1, axis=0)], axis=1)
-    iota_t = jnp.arange(ntemp, dtype=jnp.int32)
-    if dtype == jnp.float64:
-        w_t32 = (pt.jtemp.reshape(-1)[:, None] == iota_t[None, :]).astype(jnp.float32)
-        ehg_both = jnp.moveaxis(
-            _f64_dot_extract(w_t32, jnp.asarray(eh_cat, jnp.float64)), -1, 0
-        ).reshape(2, mb, 2, nlay, ncol)
-    else:
-        w_t = (pt.jtemp.reshape(-1)[None] == iota_t[:, None]).astype(eh2.dtype)
-        ehg_both = jax.lax.dot_general(
-            eh_cat.T, w_t, (((1,), (0,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST,
-        ).reshape(2, mb, 2, nlay, ncol)  # (itemp*nb2 order: itemp, band, slot)
-
-    outs = []
-    for itemp in (0, 1):
-        eta_half = jnp.where(sel, ehg_both[itemp, :, 0], ehg_both[itemp, :, 1])
-        col_mix = vmr1 + eta_half * vmr2
-        eta = jnp.where(col_mix > 0.0, vmr1 / jnp.where(col_mix > 0.0, col_mix, 1.0), 0.5)
-        loc_eta = eta * (n_eta - 1)
-        jeta_f = jnp.minimum(jnp.floor(loc_eta), n_eta - 2)
-        jeta = jeta_f.astype(jnp.int32)
-        # switchable node semantics at exact eta grid nodes (see
-        # ETA_NODE_MODES; compute_eta_interp for the rationale)
-        feta = _eta_frac(loc_eta, jeta_f, node_mode)
-        outs.append((jeta, feta, col_mix))
-    (j1, f1, c1), (j2, f2, c2) = outs
-    return EtaInterp(j1, f1, j2, f2, c1, c2)
-
-
 def gpt2band_np(lkp: GasLookup) -> np.ndarray:
     g2b = np.zeros((lkp.n_gpt,), np.int32)
     for ibnd, (g0, g1) in enumerate(lkp.bnd_lims_gpt):
@@ -279,11 +192,10 @@ def gpt2band_np(lkp: GasLookup) -> np.ndarray:
 def _f64_dot_extract(w_f32, table64, cols_exact=True):
     """dot(one-hot w, f64 table) computed EXACTLY with two f32 dots.
 
-    XLA while-emulates f64 dot_general on TPU (measured r5: the Planck and
-    eta-half gathers were ~200 ms of an 8k-column f64 prologue). A one-hot
-    f32 dot at HIGHEST precision picks rows exactly, and an f64 value
-    splits exactly into two f32 words, so hi/lo extraction + f64 recombine
-    is BITWISE the gathered value."""
+    A one-hot f32 dot at HIGHEST precision picks rows exactly, and an f64
+    value splits exactly into two f32 words, so hi/lo extraction + f64
+    recombine is BITWISE the gathered value. (Written for a backend without
+    native f64 dots; whether it still pays where f64 is native is open.)"""
     hi = table64.astype(jnp.float32)
     lo = (table64 - hi.astype(jnp.float64)).astype(jnp.float32)
     cat = jnp.concatenate([hi, lo], axis=1)
@@ -399,9 +311,8 @@ def compute_tau_minor(
             ibnd = int(g2b[itv.gpt0])
             # 4-point (temp x eta) gathers: same interp2d arithmetic as the
             # one-hot form (ref gas_optics.jl:255-306) but only the 4 active
-            # nodes are gathered — the (nlay, ncol, ng, neta) one-hot
-            # temporaries made minor gases ~3/4 of the f64 solve prologue
-            # (measured r5: 426 of 583 ms at 8k cols in the df64 tier)
+            # nodes are gathered — no (nlay, ncol, ng, neta) one-hot
+            # temporaries
             krows = kminor[itv.k0 : itv.k0 + ng]            # (ng, ntemp, neta)
             K2 = jnp.asarray(krows, dtype).transpose(1, 2, 0).reshape(
                 ntemp * neta, ng
@@ -471,11 +382,11 @@ def _planck_bands_to_gpt(lkp: GasLookup, t):
     """Planck source interp, expanded to g-points.
 
     t: (..., ncol) temperatures; returns (..., ncol, ngpt) with the band
-    value broadcast over that band's g-points. TPU-native formulation: the
-    equispaced 1-D interpolation is a 2-hot matmul against the whole
-    (n_t_plnk, nbnd) table — one MXU contraction for ALL bands — and the
-    band->gpt expansion is a second matmul against the 0/1 band matrix.
-    (Pointwise tp[j] gathers here were ~10x the cost of everything else.)
+    value broadcast over that band's g-points. The equispaced 1-D
+    interpolation is a 2-hot matmul against the whole (n_t_plnk, nbnd)
+    table — one contraction for ALL bands, instead of pointwise tp[j]
+    gathers — and the band->gpt expansion is a second matmul against the
+    0/1 band matrix.
     Endpoint clamping matches interp1d_equispaced (ref optics_utils.jl:32-42).
     """
     tp = lkp.totplnk  # (n_t_plnk, nbnd)
@@ -486,7 +397,6 @@ def _planck_bands_to_gpt(lkp: GasLookup, t):
     f = jnp.clip(loc - j, 0.0, 1.0)  # clamp => y[0] / y[-1] outside the grid
     hp = jax.lax.Precision.HIGHEST
     if dtype == jnp.float64:
-        # f64 dot_general while-emulates on TPU (measured, PARITY r5):
         # extract rows T[j], T[j+1] exactly with f32-split one-hot dots
         # ([tp | roll(tp)] supplies j+1 from the same one-hot) and apply
         # the f64 weights elementwise — the SAME two products + one add

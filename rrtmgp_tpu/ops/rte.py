@@ -1,7 +1,7 @@
-"""RTE vertical-transport solvers, TPU-native formulation.
+"""RTE vertical-transport solvers, batched XLA formulation.
 
 These are the four transport cores of the framework, mirroring the reference
-solvers' numerics but restructured for XLA/TPU:
+solvers' numerics but restructured for XLA:
 
 - LW no-scattering source-function integration
   (ref: /root/reference/src/rte/longwave1scalar.jl:149-212, Clough et al. 1992)
@@ -16,9 +16,9 @@ solvers' numerics but restructured for XLA/TPU:
 Design (not a port): the reference runs one scalar thread per column with the
 layer recurrence in registers. Here every per-layer quantity (transmittance,
 reflectance, linear-in-tau sources) is computed *vectorized* over
-(layer x batch) — pure VPU work XLA fuses — and only the two light linear
+(layer x batch) — elementwise work XLA fuses — and only the two light linear
 recurrences (carries of 1-2 scalars per batch element) run under ``lax.scan``.
-Batch axes are trailing, so a batch of (ngpt, ncol) puts columns on TPU lanes.
+Batch axes are trailing and contiguous.
 
 Index convention: level 0 = surface, level nlay = top of atmosphere
 (matching the reference's bot_at_1). Layer i spans levels i -> i+1.

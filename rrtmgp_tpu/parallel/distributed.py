@@ -3,10 +3,10 @@
 The reference performs ZERO inter-rank communication — each MPI rank runs
 RRTMGP on its local columns, with the host model (ClimaAtmos) owning the
 decomposition (SURVEY.md section 2: ClimaComms context carried but unused
-for communication). The TPU-native equivalent keeps that property: one
+for communication). This module keeps that property: one
 global 1-D column mesh spanning all processes' devices, per-process column
 slices, lookup tables replicated, and no collectives anywhere in the solve.
-Scaling is pure column throughput over ICI/DCN.
+Scaling is pure column throughput.
 
 Usage (one process per host, e.g. under SLURM/GKE):
 
@@ -39,8 +39,10 @@ def initialize(
 ) -> None:
     """Start the JAX distributed runtime (idempotent).
 
-    With no arguments, reads the standard environment (TPU metadata, or
-    JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID). After
+    With no arguments, reads the standard environment
+    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, or a
+    cluster JAX detects); on a machine that announces no cluster, pass
+    all three explicitly (e.g. coordinator_address='localhost:<port>'). After
     this returns, ``jax.devices()`` spans ALL processes' devices and
     ``jax.local_devices()`` this process's.
     """

@@ -3,10 +3,10 @@
 The reference's only parallel strategy is embarrassingly-parallel domain
 decomposition over columns (SURVEY.md section 2: ClimaComms threads / one CUDA
 thread per column; multi-node handled by the host model with zero inter-rank
-communication). The TPU-native equivalent: a 1-D device mesh over the column
+communication). Here: a 1-D device mesh over the column
 axis, ``NamedSharding`` on every per-column array, lookup tables replicated.
 No collectives exist on the hot path — XLA partitions the whole solve
-per-device; scaling is pure column throughput over ICI/DCN.
+per-device; scaling is pure column throughput.
 
 Multi-host: call ``jax.distributed.initialize()`` before building the mesh;
 the same program runs SPMD across processes.
@@ -79,19 +79,19 @@ def _col_pspec(x, ncol: int):
 def shard_solve(fn, mesh: Mesh, ncol: int):
     """shard_map a pure solve over the column mesh.
 
-    The SPMD wrapper the Pallas megakernel path needs: ``pallas_call`` has no
-    partitioning rule, so under plain ``jit`` sharded operands would be
-    gathered onto every device. ``shard_map`` instead runs ``fn`` per shard
-    on its local columns — the TPU-native equivalent of the reference's
-    same-kernel CPU/CUDA duality (/root/reference/ext/RRTMGPCUDAExt.jl:42-50,
-    one thread per column; here one mesh slice per device, zero collectives).
+    ``shard_map`` runs ``fn`` per shard on its local columns, so the solve is
+    partitioned by construction rather than left to the SPMD partitioner —
+    the counterpart of the reference's same-kernel CPU/CUDA duality
+    (/root/reference/ext/RRTMGPCUDAExt.jl:42-50, one thread per column; here
+    one mesh slice per device, zero collectives) — and each shard knows its
+    global column offset, which keeps McICA sampling mesh-invariant.
 
     Every argument/output leaf whose trailing axis is the GLOBAL column axis
     (size ``ncol``) is sharded over 'col'; everything else (lookup tables,
     scalar seeds, global-mean vmr vectors) is replicated. ``fn`` must accept
-    per-shard column counts (ncol / mesh size; the megakernels additionally
-    need that to be a multiple of 128). Output structure is discovered with
-    ``eval_shape``, detecting column leaves by trailing size ncol/n_devices.
+    per-shard column counts (ncol / mesh size). Output structure is
+    discovered with ``eval_shape``, detecting column leaves by trailing size
+    ncol/n_devices.
 
     Inside ``fn``, recover the shard's global column offset with
     ``jax.lax.axis_index('col') * (ncol // n_devices)`` and pass it to

@@ -1,47 +1,34 @@
-"""Compiler-option helpers for the TPU kernel path.
+"""JAX's persistent compilation cache, kept at one fixed place.
 
-The fused RTE sweep kernels hold (nlay, block, ngpt) f32 operand blocks in
-VMEM; at the fast block sizes (128 columns) these exceed XLA's default 16 MiB
-scoped-VMEM budget. v5e has 128 MiB of VMEM per core — raising the scoped
-limit for the radiation jit lets the sweeps run at 8x larger blocks
-(measured ~2.5x faster; the 60-step serial vertical recurrence amortizes its
-latency over more vector registers per step).
+One rule for every caller (tests, benchmarks, chip_smoke.py): where
+``$JAX_COMPILATION_CACHE_DIR`` is set, the cache lives there and nothing
+here names another path; otherwise it lives in ``<checkout>/.jax_cache``
+(listed in .gitignore). The directory is fixed so that a later process finds
+what an earlier one compiled.
 """
 
 from __future__ import annotations
 
-SCOPED_VMEM_KIB = 98304  # 96 MiB of the 128 MiB v5e VMEM
+import os
+
+#: the cache directory used when $JAX_COMPILATION_CACHE_DIR is unset
+DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
+)
 
 
-def enable_compile_cache(path: str = "/tmp/jax_compile_cache") -> None:
-    """Point JAX's persistent compilation cache at `path` (idempotent).
+def compile_cache_dir() -> str:
+    """$JAX_COMPILATION_CACHE_DIR if set, else DEFAULT_CACHE_DIR."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or DEFAULT_CACHE_DIR
 
-    The benchmark/driver scripts call this so repeat runs skip the 1-5 min
-    first-compile of the big fused programs (tests/conftest.py does the same
-    for the test suite)."""
+
+def enable_compile_cache(min_compile_time_secs: float = 1.0) -> str:
+    """Point JAX's persistent compilation cache at compile_cache_dir()
+    (idempotent) and return that directory. Call before the first compile."""
     import jax
 
+    path = compile_cache_dir()
     jax.config.update("jax_compilation_cache_dir", path)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
-
-def tpu_compiler_options() -> dict | None:
-    """compiler_options for jax.jit wrapping a TPU radiation solve.
-
-    Returns None off-TPU (the CPU/interpret path must not receive
-    TPU-specific XLA flags).
-    """
-    import jax
-
-    if jax.default_backend() == "tpu":
-        return {"xla_tpu_scoped_vmem_limit_kib": SCOPED_VMEM_KIB}
-    return None
-
-
-def sweep_block_cols() -> int:
-    """Recommended RTE-sweep column block: 128 on TPU when the enclosing jit
-    uses tpu_compiler_options(); the conservative 16 fits the default scoped
-    budget everywhere else."""
-    import jax
-
-    return 128 if jax.default_backend() == "tpu" else 16
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", min_compile_time_secs)
+    return path

@@ -1,4 +1,4 @@
-"""Debug-mode helpers: the TPU-native analogue of the reference's quality
+"""Debug-mode helpers: the analogue of the reference's quality
 gates (JET type-stability + allocation bounds + --check-bounds, see
 /root/reference/test/clear_sky_utils.jl:88-99, test/datalayouts.jl:2).
 
@@ -47,13 +47,3 @@ def assert_compiles_once(fn_name: str = ""):
             yield log
         finally:
             logger.removeHandler(handler)
-
-
-def check_window(lkp, as_, window: int) -> bool:
-    """Eagerly verify the force-mode megakernel window invariant for a given
-    atmosphere (hosts stepping far from their init state should call this
-    periodically; a violated window in force mode reads wrong table rows).
-    Returns True when every layer's rows fit."""
-    from ..ops.gas_optics_pallas import compute_min_window
-
-    return compute_min_window(lkp, as_, mega=True) <= window

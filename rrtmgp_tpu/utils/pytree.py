@@ -2,7 +2,7 @@
 
 The reference (RRTMGP.jl) uses mutable structs adapted for GPU capture via
 ``Adapt.@adapt_structure`` (e.g. /root/reference/src/optics/AtmosphericStates.jl:58).
-The TPU-native equivalent is an immutable dataclass registered as a JAX pytree:
+Here it is an immutable dataclass registered as a JAX pytree:
 fields flow through ``jit``/``grad``/``shard_map`` as leaves, while static
 (configuration) fields are hashable aux data.
 """

@@ -175,7 +175,7 @@ _LINF_RE = re.compile(
 
 def run_matrix(data_dir: str, eta_mode: str) -> tuple[bool, list[dict], str]:
     env = dict(os.environ)
-    env.pop("PYTHONPATH", None)  # drop any PJRT plugin injection; CPU run
+    env.setdefault("JAX_PLATFORMS", "cpu")
     env["RRTMGP_DATA"] = data_dir
     env["RRTMGP_ETA_NODE_MODE"] = eta_mode
     r = subprocess.run(

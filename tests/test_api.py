@@ -162,10 +162,11 @@ def test_f64_auto_chunk(monkeypatch):
     f_lw_ref = s_ref.update_lw_fluxes()
     f_sw_ref = s_ref.update_sw_fluxes()
 
-    # tiny budget: per_col = nlay*ngpt*8*34 B -> cmax=3 -> chunk = largest
-    # power of two <= cmax = 2 (budget-derived, NOT a divisor of ncol: the
-    # chunked solve edge-pads columns to a chunk multiple and slices back)
-    monkeypatch.setenv("RRTMGP_CHUNK_BUDGET_GB", "0.0005")
+    # tiny budget: 3.5 columns' worth -> cmax=3 -> chunk = largest power of
+    # two <= cmax = 2 (budget-derived, NOT a divisor of ncol: the chunked
+    # solve edge-pads columns to a chunk multiple and slices back)
+    per_col = rt.api.f64_bytes_per_column(NLAY, 16)
+    monkeypatch.setenv("RRTMGP_CHUNK_BUDGET_GB", str(3.5 * per_col / 1e9))
     with pytest.warns(UserWarning, match="auto-chunking"):
         s = _solver(method)
     assert s.auto_chunk == 2
@@ -259,13 +260,6 @@ def test_volume_mixing_ratio_and_aero_getters():
     assert float(jnp.max(m)) > 0.0
 
 
-def test_check_window_off_tpu_and_gray():
-    s = _solver(rt.ClearSkyRadiation(False))
-    # off-TPU the megakernel window is not in play: always valid
-    assert s.check_window() is True
-    assert s.check_window(dataclasses.replace(s.as_, t_lay=s.as_.t_lay + 50.0)) is True
-
-
 def test_solver_metric_scaling():
     """RRTMGPSolver(metric_scaling=...) scales all fluxes (ref
     Fluxes.jl:227-236 via the RTESolver metric_scaling argument); scaling=2
@@ -335,3 +329,97 @@ def test_n_gauss_angles_inc_flux_split():
         toa_dn = np.asarray(flux.flux_dn)[-1]
         np.testing.assert_allclose(toa_dn, 0.5 * LOOKUPS.lookup_lw.n_gpt,
                                    rtol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# f64 memory sizing (api.chunk_budget_bytes / auto_chunk_size)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "ncol, per_col, budget, want",
+    [
+        (100, 1.0, None, None),       # no budget (the CPU): never chunk
+        (100, 1.0, 100.0, None),      # fits exactly
+        (100, 1.0, 64.0, 64),         # budget of a power of two columns
+        (100, 1.0, 50.0, 32),         # largest power of two <= 50
+        (11332, 1.45e6, 3.19e10, None),  # H100 default budget, phase-5 size
+        (100, 10.0, 5.0, 1),          # not even one column: one at a time
+    ],
+)
+def test_auto_chunk_size(ncol, per_col, budget, want):
+    assert rt.api.auto_chunk_size(ncol, per_col, budget) == want
+
+
+class _FakeDevice:
+    def __init__(self, stats):
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+@pytest.mark.parametrize(
+    "stats, want",
+    [
+        ({"bytes_limit": 63763120128}, 0.5 * 63763120128),
+        ({"bytes_in_use": 0}, None),
+        (None, None),
+    ],
+)
+def test_chunk_budget_from_device(monkeypatch, stats, want):
+    monkeypatch.delenv("RRTMGP_CHUNK_BUDGET_GB", raising=False)
+    assert rt.api.chunk_budget_bytes(_FakeDevice(stats)) == want
+
+
+def test_chunk_budget_env_override(monkeypatch):
+    monkeypatch.setenv("RRTMGP_CHUNK_BUDGET_GB", "2.5")
+    assert rt.api.chunk_budget_bytes(_FakeDevice({"bytes_limit": 1})) == 2.5e9
+
+
+def test_f64_bytes_per_column_scales_with_spectral_size():
+    per = rt.api.f64_bytes_per_column
+    assert per(60, 256) == 60 * 256 * rt.api.F64_BYTES_PER_ELEMENT
+    assert per(120, 256) == 2 * per(60, 256)
+
+
+def test_cpu_solver_does_not_auto_chunk(monkeypatch):
+    """The CPU reports no bytes_limit: an f64 solver there is not chunked
+    unless $RRTMGP_CHUNK_BUDGET_GB asks for it."""
+    monkeypatch.delenv("RRTMGP_CHUNK_BUDGET_GB", raising=False)
+    assert _solver(rt.ClearSkyRadiation(False)).auto_chunk is None
+
+
+@pytest.mark.parametrize("option", ["use_pallas", "pallas_windowed", "f64_kernel"])
+def test_removed_options_rejected(option):
+    with pytest.raises(TypeError, match=option):
+        rt.RRTMGPSolver(
+            rt.RRTMGPGridParams(nlay=NLAY, ncol=NCOL, dtype=jnp.float64),
+            rt.ClearSkyRadiation(), PARAMS, None, None,
+            synthetic_atmosphere(ncol=NCOL, nlay=NLAY), lookups=LOOKUPS, **{option: True},
+        )
+
+
+@pytest.mark.parametrize(
+    "method", [rt.ClearSkyRadiation(True), rt.AllSkyRadiation(True, reset_rng_seed=True)]
+)
+def test_lower_update_fluxes(method):
+    """The program update_fluxes() runs, lowered: it compiles, reports its
+    memory, and computes what update_fluxes() stores."""
+    s = _solver(method)
+    s.advance_step(2)
+    compiled = s.lower_update_fluxes().compile()
+    assert compiled.memory_analysis() is not None
+    (flw, _), (fsw, _) = compiled(*(
+        (s.as_, s.bcs_lw, s.bcs_sw) if isinstance(method, rt.ClearSkyRadiation)
+        else (s.as_, s.bcs_lw, s.bcs_sw, s._mcica_key(0), s._mcica_key(1), s._col_ids)
+    ))
+    s.update_fluxes()
+    np.testing.assert_array_equal(np.asarray(flw.flux_up), np.asarray(s.lw_flux_up()))
+    np.testing.assert_array_equal(np.asarray(fsw.flux_dn), np.asarray(s.sw_flux_dn()))
+
+
+def test_lower_update_fluxes_refuses_two_program_methods():
+    s = _solver(rt.AllSkyRadiationWithClearSkyDiagnostics(True, True))
+    with pytest.raises(TypeError, match="more than one program"):
+        s.lower_update_fluxes()

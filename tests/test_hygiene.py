@@ -37,7 +37,6 @@ def test_public_api_resolves():
             assert getattr(rrtmgp_tpu, name) is not None
     for fn in (
         "solve_lw", "solve_sw", "solve_chunked",
-        "differentiable_solve_lw", "differentiable_solve_sw",
         "solve_gray_lw", "solve_gray_sw", "gray_lw_equilibrium",
         "setup_gray_as_pr_grid", "lookup_tables", "domain_view",
         "aerosol_names", "gas_names_sw",

@@ -14,8 +14,7 @@ rrtmgp_tpu.ops.* (no batching, no one-hot contractions, no scans): every
 quantity is computed per scalar (layer, column, g-point) with explicit
 Python loops, so an index-offset / axis-permutation / vectorization bug in
 the batched XLA path cannot also be present here. The batched path must
-match this oracle to ~1e-13 relative in f64; the Pallas (f32) optics path to
-f32 tolerance.
+match this oracle to ~1e-13 relative in f64, and to f32 tolerance in f32.
 
 Spec anchors (semantics replicated, code NOT consulted for structure):
 - interpolation index/fraction rules: /root/reference/src/optics/gas_optics.jl:82-150
@@ -433,7 +432,7 @@ def oracle_sw_2stream(tau, ssa, g, mu0, toa, alb_dir, alb_dif, inc_dif=None):
 
 
 # ---------------------------------------------------------------------------
-# Tests: batched XLA path vs oracle (f64 ~1e-13), Pallas path (f32 tol)
+# Tests: batched XLA path vs oracle (f64 ~1e-13, f32 to f32 tolerance)
 # ---------------------------------------------------------------------------
 
 NCOL, NLAY, NGPT, NBND = 4, 8, 16, 2
@@ -581,16 +580,15 @@ def test_eta_node_mode_on_node(problem):
     np.testing.assert_array_equal(taus["off_continuous"], taus["off_reference"])
 
 
-def test_oracle_pallas_optics_f32(problem):
-    """Pallas (interpret off-TPU) optics path vs the scalar oracle at f32
-    tolerance — pins the kernel tier against the independent numerics, not
-    just against the XLA path."""
-    from rrtmgp_tpu.ops.gas_optics_pallas import build_pallas_tables
-    from rrtmgp_tpu.ops.gas_optics_pallas import gas_optics_lw as pallas_lw
-
-    lkp_lw, _, atm64 = problem
+@pytest.mark.parametrize("longwave", [True, False], ids=["lw", "sw"])
+def test_oracle_optics_f32(problem, longwave):
+    """The XLA optics path in f32 vs the f64 scalar oracle at f32 tolerance —
+    the precision every f32 solve runs at (including the GPU's, where a
+    product computed in TF32 would miss this bound)."""
+    lkp_lw, lkp_sw, atm64 = problem
+    lkp64 = lkp_lw if longwave else lkp_sw
     lkp32 = jax.tree_util.tree_map(
-        lambda x: x.astype(jnp.float32) if hasattr(x, "dtype") else x, lkp_lw
+        lambda x: x.astype(jnp.float32) if hasattr(x, "dtype") else x, lkp64
     )
     atm32 = jax.tree_util.tree_map(
         lambda x: x.astype(jnp.float32)
@@ -598,9 +596,10 @@ def test_oracle_pallas_optics_f32(problem):
         else x,
         atm64,
     )
-    tabs = build_pallas_tables(lkp32)
-    optics = pallas_lw(lkp32, tabs, atm32, windowed="off")
-    tau_o, _, _ = oracle_gas_optics(lkp_lw, atm64, longwave=True)
-    np.testing.assert_allclose(
-        np.asarray(optics.tau), tau_o, rtol=3e-4, atol=1e-9
-    )
+    fn = gas_optics_lw if longwave else gas_optics_sw
+    optics = jax.jit(lambda a: fn(lkp32, a))(atm32)
+    assert optics.tau.dtype == jnp.float32
+    tau_o, ssa_o, _ = oracle_gas_optics(lkp64, atm64, longwave=longwave)
+    np.testing.assert_allclose(np.asarray(optics.tau), tau_o, rtol=3e-4, atol=1e-9)
+    if not longwave:
+        np.testing.assert_allclose(np.asarray(optics.ssa), ssa_o, rtol=3e-4, atol=1e-7)

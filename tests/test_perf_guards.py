@@ -1,4 +1,4 @@
-"""Performance guards: the TPU analogue of the reference's JET type-stability
+"""Performance guards: the counterpart of the reference's JET type-stability
 + zero-allocation gates (/root/reference/test/clear_sky_utils.jl:88-99).
 
 For a jit-based framework the equivalent invariants are:
